@@ -27,8 +27,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pyipm_tpu.config import IPMConfig
-    from pyipm_tpu.models.random_nlp import (
+    from pyipm_jax.config import IPMConfig
+    from pyipm_jax.models.random_nlp import (
         make_dense_nlp_solver, sample_dense_nlp,
     )
 

@@ -4,7 +4,7 @@ large-D answer).  Batched solves of the dense nonconvex NLP family with
 the Hessian DISABLED (compact-Woodbury directions only).
 
     python benchmarks/bench_lbfgs.py [--d 4096] [--batch 8] [--m 8]
-        [--mem 8] [--cpu] [--out results/r03/lbfgs_bench.json]
+        [--mem 8] [--cpu] [--out lbfgs_bench.json]
 
 Reports end-to-end wall, iterations/s, and the peak device-memory
 estimate from XLA's compiled executable (no (D+M+N)^2 allocations).
@@ -34,14 +34,16 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_tpu_cache")
+    from pyipm_jax.utils import compile_cache
+    compile_cache.enable(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     import jax.numpy as jnp
     import numpy as np
 
-    from pyipm_tpu.config import IPMConfig
-    from pyipm_tpu.core.solver import make_solver
-    from pyipm_tpu.models.random_nlp import (
+    from pyipm_jax.config import IPMConfig
+    from pyipm_jax.core.solver import make_solver
+    from pyipm_jax.models.random_nlp import (
         make_dense_nlp_problem, sample_dense_nlp,
     )
 

@@ -36,15 +36,17 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_tpu_cache")
+    from pyipm_jax.utils import compile_cache
+    compile_cache.enable(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 
-    from pyipm_tpu.config import IPMConfig
-    from pyipm_tpu.parallel.schur import BlockNLP, box_ci, make_block_solver
+    from pyipm_jax.config import IPMConfig
+    from pyipm_jax.parallel.schur import BlockNLP, box_ci, make_block_solver
 
     K, d, mc, p = args.blocks, args.d, args.mc, args.mc
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("model",))

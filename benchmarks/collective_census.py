@@ -1,16 +1,16 @@
-"""Collective census of the distributed Schur iteration (VERDICT r3 #3).
+"""Collective census of the distributed Schur iteration.
 
 Counts the XLA collectives (all_reduce / all_gather / collective_permute /
 reduce_scatter / all_to_all) in the lowered AND optimized programs of the
 block solver's ``run_budget`` step on a virtual 8-device mesh, per
 configuration.  Static occurrences in the while-loop body execute once per
 inner iteration, so the count is the per-iteration collective LATENCY
-multiplier that the ici_roofline's count x latency term uses
-(benchmarks/record_scaling.py).
+multiplier of the sharded solve.  A count, not a timing: it runs on the
+CPU.
 
-    PYTHONPATH= JAX_PLATFORMS=cpu python benchmarks/collective_census.py
+    JAX_PLATFORMS=cpu python benchmarks/collective_census.py
 
-Writes benchmarks/results/r04/collective_census.json.
+Prints the census as one JSON object.
 """
 
 import json
@@ -31,9 +31,9 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from pyipm_tpu.config import IPMConfig  # noqa: E402
-from pyipm_tpu.parallel.mesh import make_solver_mesh  # noqa: E402
-from pyipm_tpu.parallel.schur import (  # noqa: E402
+from pyipm_jax.config import IPMConfig  # noqa: E402
+from pyipm_jax.parallel.mesh import make_solver_mesh  # noqa: E402
+from pyipm_jax.parallel.schur import (  # noqa: E402
     make_block_solver, sample_block_general,
 )
 
@@ -111,18 +111,12 @@ def main():
         IPMConfig(float_dtype="float32", verbosity=0, lbfgs=6,
                   niter=20, miter=40), mesh))
 
-    outdir = os.path.join(HERE, "results",
-                          os.environ.get("CENSUS_ROUND", "r05"))
-    os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, "collective_census.json")
-    with open(path, "w") as f:
-        json.dump({"rows": rows,
-                   "note": ("static collective ops in the run_budget "
-                            "program; ops inside the while body execute "
-                            "once per inner iteration (line-search "
-                            "chunk retries add their phi collective per "
-                            "extra chunk)")}, f, indent=1)
-    print(f"wrote {path}")
+    print(json.dumps({"rows": rows,
+                      "note": ("static collective ops in the run_budget "
+                               "program; ops inside the while body "
+                               "execute once per inner iteration "
+                               "(line-search chunk retries add their phi "
+                               "collective per extra chunk)")}, indent=1))
 
 
 if __name__ == "__main__":

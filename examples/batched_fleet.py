@@ -15,16 +15,16 @@ import sys
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")   # drop for TPU
+jax.config.update("jax_platforms", "cpu")   # drop to run on a GPU
 
 import jax.numpy as jnp                     # noqa: E402
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.models.random_nlp import (   # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.models.random_nlp import (   # noqa: E402
     make_qp_problem, sample_qp_batch,
 )
-from pyipm_tpu.parallel.batch import make_wave_batch_solver  # noqa: E402
+from pyipm_jax.parallel.batch import make_wave_batch_solver  # noqa: E402
 
 
 def main(batch=512, nvar=8, nlin=3):

@@ -2,12 +2,9 @@
 
 1. **Per-block L-BFGS** (`IPMConfig(lbfgs=m)`): the sharded block solver
    replaces its d^3 per-block factorization with a compact Woodbury
-   operator, so blocks far beyond the dense boundary
-   (benchmarks/results/r04/schur_dsweep.json) solve interactively —
-   the measured flagship is 524,288 variables at d = 65,536 per block
-   in 0.28 s on one v5e chip
-   (benchmarks/results/r04/schur_lbfgs_largeblock.json).  Here: a
-   CPU-sized demo with d = 512 blocks.
+   operator, so blocks far beyond the dense factorization's reach
+   (benchmarks/bench_schur_scaling.py --mode dsweep) stay cheap per
+   iteration.  Here: a CPU-sized demo with d = 512 blocks.
 
 2. **Ragged blocks**: per-block constraint counts (me_k, ni_k) under
    static maxima + validity masks — one compiled SPMD program solves a
@@ -30,9 +27,9 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp                     # noqa: E402
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.parallel.mesh import make_solver_mesh  # noqa: E402
-from pyipm_tpu.parallel.schur import (      # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.parallel.mesh import make_solver_mesh  # noqa: E402
+from pyipm_jax.parallel.schur import (      # noqa: E402
     BlockNLP, box_ci, make_block_solver, sample_block_ragged,
 )
 

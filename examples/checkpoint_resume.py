@@ -25,10 +25,10 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.core.solver import make_solver  # noqa: E402
-from pyipm_tpu.models.reference_problems import get_problem  # noqa: E402
-from pyipm_tpu.utils.checkpoint import restore_state, save_state  # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.core.solver import make_solver  # noqa: E402
+from pyipm_jax.models.reference_problems import get_problem  # noqa: E402
+from pyipm_jax.utils.checkpoint import restore_state, save_state  # noqa: E402
 
 
 def main():
@@ -64,7 +64,7 @@ def main_distributed():
     relaunch-same-world-size + restore + resume (parallel/launch.py)."""
     import jax.numpy as jnp
 
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 

@@ -3,9 +3,9 @@ launcher analog; the reference is single-process by construction).
 
 Run through the launcher's local spawn mode (2 processes x 4 virtual CPU
 devices each — the same code launches one-process-per-host on a real
-cluster, and needs no flags at all on Cloud TPU pods):
+cluster):
 
-    python -m pyipm_tpu.parallel.launch --spawn 2 examples/distributed_fleet.py
+    python -m pyipm_jax.parallel.launch --spawn 2 examples/distributed_fleet.py
 """
 
 import jax
@@ -15,10 +15,10 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.models.reference_problems import get_problem  # noqa: E402
-from pyipm_tpu.parallel import distributed as dist  # noqa: E402
-from pyipm_tpu.parallel.batch import make_batch_solver  # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.models.reference_problems import get_problem  # noqa: E402
+from pyipm_jax.parallel import distributed as dist  # noqa: E402
+from pyipm_jax.parallel.batch import make_batch_solver  # noqa: E402
 
 
 def main():

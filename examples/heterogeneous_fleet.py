@@ -16,10 +16,10 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp                     # noqa: E402
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.core.problem import Problem  # noqa: E402
-from pyipm_tpu.models.reference_problems import get_problem  # noqa: E402
-from pyipm_tpu.parallel.fleet import solve_fleet  # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.core.problem import Problem  # noqa: E402
+from pyipm_jax.models.reference_problems import get_problem  # noqa: E402
+from pyipm_jax.parallel.fleet import solve_fleet  # noqa: E402
 
 
 def box_qp(nvar, seed):

@@ -19,9 +19,9 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp                     # noqa: E402
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.core.solver import make_solver  # noqa: E402
-from pyipm_tpu.models.applications import (  # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.core.solver import make_solver  # noqa: E402
+from pyipm_jax.models.applications import (  # noqa: E402
     MPCData, make_mpc_problem, sample_mpc_batch,
 )
 

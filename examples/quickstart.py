@@ -11,13 +11,13 @@ surface to the reference: construct ``IPM`` with plain callables, call
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")   # run anywhere; drop for TPU
+jax.config.update("jax_platforms", "cpu")   # run anywhere; drop for a GPU
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp                     # noqa: E402
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPM                   # noqa: E402
+from pyipm_jax import IPM                   # noqa: E402
 
 
 def main():

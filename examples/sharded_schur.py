@@ -5,8 +5,8 @@ counterpart — reference pyipm.py is single-device by construction).
 The condensed KKT system's Schur complement over the coupling constraints
 is reduced with ``psum`` inside ``shard_map`` over the mesh's ``model``
 axis, so the per-iteration linear algebra runs block-local with one small
-collective.  Here: 8 virtual CPU devices; on a TPU slice the same code
-runs over ICI.
+collective.  Here: 8 virtual CPU devices; on a multi-GPU host the same
+code runs its collectives as NCCL calls.
 
     python examples/sharded_schur.py
 """
@@ -24,9 +24,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np                          # noqa: E402
 
-from pyipm_tpu import IPMConfig             # noqa: E402
-from pyipm_tpu.parallel.mesh import make_solver_mesh  # noqa: E402
-from pyipm_tpu.parallel.schur import (      # noqa: E402
+from pyipm_jax import IPMConfig             # noqa: E402
+from pyipm_jax.parallel.mesh import make_solver_mesh  # noqa: E402
+from pyipm_jax.parallel.schur import (      # noqa: E402
     make_separable_solver, sample_separable,
 )
 
@@ -46,7 +46,7 @@ def main():
     # --- full generality: nonlinear per-block inequalities + equalities
     # and a NONLINEAR coupling cc(sum_k g_k(x_k)) = 0 through the bordered
     # Schur complement (BlockNLP / make_block_solver)
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -62,8 +62,8 @@ def main():
     # --- AFFINE coupling: declare it (BlockNLP.linear_coupling=True) and
     # the solver fuses the pooled-feature reduction, the Schur-border
     # formation, and the first bordered solve into ONE collective per
-    # iteration (12 all-reduces/iter total vs 15 general — the census
-    # artifact benchmarks/results/r05/collective_census.json); identical
+    # iteration (fewer all-reduces per iteration than the general path —
+    # benchmarks/collective_census.py counts them); identical
     # solutions to the general path (tests/test_schur.py pins it)
     lspec, ltheta, lccdata, lx0 = sample_block_general(
         jax.random.key(2), K, 3, me=1, ni=2, p=2, mc=1,

@@ -25,10 +25,10 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from pyipm_tpu import IPMConfig  # noqa: E402
-from pyipm_tpu.models.reference_problems import get_problem  # noqa: E402
-from pyipm_tpu.parallel import distributed as dist  # noqa: E402
-from pyipm_tpu.parallel.batch import make_batch_solver  # noqa: E402
+from pyipm_jax import IPMConfig  # noqa: E402
+from pyipm_jax.models.reference_problems import get_problem  # noqa: E402
+from pyipm_jax.parallel import distributed as dist  # noqa: E402
+from pyipm_jax.parallel.batch import make_batch_solver  # noqa: E402
 
 
 def main():

@@ -1,6 +1,6 @@
 """Worker for the launcher test (test_launch.py): joins the cluster purely
 through the ``PYIPM_*`` rendezvous environment set by
-``pyipm_tpu.parallel.launch`` — no argv plumbing — then runs one tiny
+``pyipm_jax.parallel.launch`` — no argv plumbing — then runs one tiny
 mesh-sharded batched solve and prints a per-rank OK line.
 
 Also doubles as the fail-fast fixture: ``--fail-rank R`` makes rank R
@@ -16,11 +16,11 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from pyipm_tpu import IPMConfig  # noqa: E402
-from pyipm_tpu.models.reference_problems import get_problem  # noqa: E402
-from pyipm_tpu.parallel import distributed as dist  # noqa: E402
-from pyipm_tpu.parallel.batch import make_batch_solver  # noqa: E402
-from pyipm_tpu.parallel.launch import ENV_PROC_ID  # noqa: E402
+from pyipm_jax import IPMConfig  # noqa: E402
+from pyipm_jax.models.reference_problems import get_problem  # noqa: E402
+from pyipm_jax.parallel import distributed as dist  # noqa: E402
+from pyipm_jax.parallel.batch import make_batch_solver  # noqa: E402
+from pyipm_jax.parallel.launch import ENV_PROC_ID  # noqa: E402
 
 
 def main():
@@ -35,7 +35,7 @@ def main():
     dist.initialize()                  # env-driven: launcher contract
     nproc = jax.process_count()
     assert nproc > 1, "launcher did not form a cluster"
-    from pyipm_tpu.parallel.launch import ENV_LOCAL_DEVICES
+    from pyipm_jax.parallel.launch import ENV_LOCAL_DEVICES
     want = os.environ.get(ENV_LOCAL_DEVICES)
     if want is not None:
         # --local-devices must win over any inherited XLA_FLAGS device

@@ -43,9 +43,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.experimental import multihost_utils  # noqa: E402
 
-from pyipm_tpu import IPMConfig  # noqa: E402
-from pyipm_tpu.parallel import distributed as dist  # noqa: E402
-from pyipm_tpu.parallel.schur import (  # noqa: E402
+from pyipm_jax import IPMConfig  # noqa: E402
+from pyipm_jax.parallel import distributed as dist  # noqa: E402
+from pyipm_jax.parallel.schur import (  # noqa: E402
     make_block_solver, sample_block_general,
 )
 
@@ -98,8 +98,8 @@ def main():
 
     # in-process single-device oracle on the assembled problem (no
     # collectives; every process computes its own copy independently)
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
 
     def f(x):
         xb = x.reshape(K, D)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPM
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPM
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 
 def test_solve_returns_reference_tuple():
@@ -116,7 +116,7 @@ def test_xtol_validated_never_read():
     (core/linesearch.py vs the reference's golden section,
     pyipm.py:1429-1432).  Two solves differing only in Xtol must be
     BIT-IDENTICAL; an Xtol below machine eps must be rejected."""
-    from pyipm_tpu import IPMConfig
+    from pyipm_jax import IPMConfig
 
     spec = REFERENCE_PROBLEMS[7]
     rng = np.random.default_rng(3)

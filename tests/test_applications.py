@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.models import applications as app
+from pyipm_jax import IPMConfig
+from pyipm_jax.models import applications as app
 
 CFG = IPMConfig(float_dtype="float32", verbosity=0, Ktol=1e-4)
 B = 4
@@ -103,10 +103,10 @@ def test_resource_allocation_distributed():
     resource pool satisfied at the KKT point."""
     import jax
 
-    from pyipm_tpu.models.applications import (
+    from pyipm_jax.models.applications import (
         make_resource_alloc_spec, sample_resource_alloc,
     )
-    from pyipm_tpu.parallel.schur import make_block_solver
+    from pyipm_jax.parallel.schur import make_block_solver
 
     K, d, nres = 16, 6, 3
     data = sample_resource_alloc(jax.random.key(0), K, d, nres=nres,
@@ -136,10 +136,10 @@ def test_resource_allocation_inequality_cap():
     carry positive shadow prices."""
     import jax
 
-    from pyipm_tpu.models.applications import (
+    from pyipm_jax.models.applications import (
         make_resource_alloc_spec, sample_resource_alloc,
     )
-    from pyipm_tpu.parallel.schur import make_block_solver
+    from pyipm_jax.parallel.schur import make_block_solver
 
     K, d, nres = 16, 6, 3
     data = sample_resource_alloc(jax.random.key(1), K, d, nres=nres,

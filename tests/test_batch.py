@@ -1,16 +1,16 @@
 """Batched (vmap) and sharded scenario solving.
 
 The reference has no batching or multi-device story; these tests cover the
-TPU-native layers: batch-consistency (batched result == loop of single
+batched layers: batch-consistency (batched result == loop of single
 solves, SURVEY.md §4) and sharding over an 8-virtual-device CPU mesh."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pyipm_tpu import IPMConfig, solve, solve_batch
-from pyipm_tpu.models import REFERENCE_PROBLEMS
-from pyipm_tpu.parallel.batch import make_batch_solver
+from pyipm_jax import IPMConfig, solve, solve_batch
+from pyipm_jax.models import REFERENCE_PROBLEMS
+from pyipm_jax.parallel.batch import make_batch_solver
 import pytest
 
 CFG = IPMConfig(Ftol=1e-8, verbosity=0)
@@ -63,7 +63,7 @@ def test_batch_sharded_over_mesh():
     B = 2 * ndev
     x0s = np.stack([spec.sample_x0(rng) for _ in range(B)])
 
-    from pyipm_tpu.parallel.mesh import make_batch_mesh
+    from pyipm_jax.parallel.mesh import make_batch_mesh
 
     mesh = make_batch_mesh()
     fn = make_batch_solver(prob, CFG, mesh=mesh)
@@ -84,10 +84,10 @@ def test_rescue_failures_recovers_stragglers():
     untouched (the r03 failure-tail recipe as a library call)."""
     import jax
 
-    from pyipm_tpu.models.random_nlp import (
+    from pyipm_jax.models.random_nlp import (
         make_qp_problem, sample_qp_batch,
     )
-    from pyipm_tpu.parallel.batch import rescue_failures
+    from pyipm_jax.parallel.batch import rescue_failures
 
     B, D, L = 32, 8, 2
     data = sample_qp_batch(jax.random.key(5), B, D, nlin=L,
@@ -98,7 +98,7 @@ def test_rescue_failures_recovers_stragglers():
         return make_qp_problem(d_, D, L)
 
     def solve_one(x0_i, d_):
-        from pyipm_tpu.core.solver import make_solver
+        from pyipm_jax.core.solver import make_solver
         return make_solver(family(d_), cfg, jit=False)(x0_i)
 
     x0 = jnp.zeros((B, D), jnp.float64)

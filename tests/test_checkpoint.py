@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models import REFERENCE_PROBLEMS
-from pyipm_tpu.utils import checkpoint as ckpt_mod
-from pyipm_tpu.utils.checkpoint import (
+from pyipm_jax import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models import REFERENCE_PROBLEMS
+from pyipm_jax.utils import checkpoint as ckpt_mod
+from pyipm_jax.utils.checkpoint import (
     CheckpointError, restore_state, save_state,
 )
 import pytest

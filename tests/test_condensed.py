@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig, make_problem, solve
-from pyipm_tpu.core import kkt as K
-from pyipm_tpu.models import REFERENCE_PROBLEMS
-from pyipm_tpu.ops.condensed import condensed_direction
-from pyipm_tpu.ops.linalg import reg_solve_kkt
+from pyipm_jax import IPMConfig, make_problem, solve
+from pyipm_jax.core import kkt as K
+from pyipm_jax.models import REFERENCE_PROBLEMS
+from pyipm_jax.ops.condensed import condensed_direction
+from pyipm_jax.ops.linalg import reg_solve_kkt
 
 
 def _direction_full(problem, cfg, x, s, lda, mu, delta):

@@ -38,9 +38,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig, Problem, solve
-from pyipm_tpu.core import kkt as K
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig, Problem, solve
+from pyipm_jax.core import kkt as K
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 PROBLEMS = (1, 4, 5, 10)          # reference unit_tests.py:106,149,166,237
 STATES = ("absent", "plain", "jitted")

@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig, make_problem, solve
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig, make_problem, solve
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 STOL = 1.0e-3
 

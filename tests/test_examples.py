@@ -33,6 +33,6 @@ def test_example_runs(name):
 
 @pytest.mark.slow
 def test_distributed_fleet_example_via_launcher():
-    out = _run(["-m", "pyipm_tpu.parallel.launch", "--spawn", "2",
+    out = _run(["-m", "pyipm_jax.parallel.launch", "--spawn", "2",
                 os.path.join(EXAMPLES, "distributed_fleet.py")])
     assert "converged" in out

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models.random_nlp import make_qp_problem, sample_qp_batch
-from pyipm_tpu.models.reference_problems import get_problem
-from pyipm_tpu.parallel.fleet import _LiftedInstance, solve_fleet
+from pyipm_jax import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models.random_nlp import make_qp_problem, sample_qp_batch
+from pyipm_jax.models.reference_problems import get_problem
+from pyipm_jax.parallel.fleet import _LiftedInstance, solve_fleet
 
 
 def _qp_instances(key, n, D, L):
@@ -89,7 +89,7 @@ def test_cross_code_path_bucketing():
     must share one bucket key: jaxpr printing alpha-renames variables at
     print time, so the str(jaxpr) fingerprint is canonical (VERDICT r4
     weak #6)."""
-    from pyipm_tpu.core.problem import Problem
+    from pyipm_jax.core.problem import Problem
 
     c = np.arange(1.0, 5.0)
     A = np.eye(4)[:2]

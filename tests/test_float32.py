@@ -1,8 +1,8 @@
 """float32 robustness sweep.
 
 The reference warns that 32-bit precision is "not recommended"
-(reference pyipm.py:205-209), but f32 is the native TPU dtype, so the
-TPU-native build must stay finite and convergent in f32.  Regression for
+(reference pyipm.py:205-209), but f32 is the accelerator's fast dtype,
+so this build must stay finite and convergent in f32.  Regression for
 the inertia-correction escalation bug where the LDL^T retry loop required
 a conditioning bound that ill-conditioned-but-solvable KKT systems never
 meet, driving delta to overflow (fixed: retry on inertia/finiteness only,
@@ -11,9 +11,9 @@ matching reference pyipm.py:1399)."""
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 
 @pytest.mark.parametrize("num", sorted(REFERENCE_PROBLEMS))
@@ -38,7 +38,7 @@ def test_float32_coupling_inequality_distributed():
     import jax
     import jax.numpy as jnp
 
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 

@@ -1,5 +1,5 @@
 """Launcher tests (SURVEY.md §2 "process launcher / elastic agent" row —
-absent in the reference; parallel/launch.py is the TPU-native equivalent).
+absent in the reference; parallel/launch.py is the equivalent here).
 
 Covers local spawn mode end-to-end (2 workers forming a real
 jax.distributed cluster via the PYIPM_* rendezvous env), the fail-fast
@@ -13,7 +13,7 @@ import sys
 
 import pytest
 
-from pyipm_tpu.parallel.launch import main as launch_main, spawn_local
+from pyipm_jax.parallel.launch import main as launch_main, spawn_local
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "launch_worker.py")
@@ -51,7 +51,7 @@ def _clean_rendezvous_env():
     """cluster-mode main() writes PYIPM_* into this process's environ; a
     leak would make any later in-process distributed.initialize() try to
     join the fake coordinator."""
-    from pyipm_tpu.parallel import launch as L
+    from pyipm_jax.parallel import launch as L
 
     keys = (L.ENV_COORD, L.ENV_NPROC, L.ENV_PROC_ID, L.ENV_LOCAL_DEVICES)
     saved = {k: os.environ.get(k) for k in keys}
@@ -67,7 +67,7 @@ def test_cluster_mode_sets_env_and_execs(tmp_path, _clean_rendezvous_env):
     script = tmp_path / "probe.py"
     script.write_text(
         "import os, sys\n"
-        "from pyipm_tpu.parallel.launch import ENV_COORD, ENV_NPROC, "
+        "from pyipm_jax.parallel.launch import ENV_COORD, ENV_NPROC, "
         "ENV_PROC_ID\n"
         "assert os.environ[ENV_COORD] == 'h:1234'\n"
         "assert os.environ[ENV_NPROC] == '4'\n"
@@ -84,3 +84,30 @@ def test_cluster_mode_sets_env_and_execs(tmp_path, _clean_rendezvous_env):
         del os.environ["PROBE_OUT"]
     assert rc == 0
     assert out.read_text() == "ran"
+
+
+def test_worker_env_gpu_one_card_each():
+    """GPU workers each see exactly one card, named by their rank, and no
+    virtual-CPU flags; CPU workers get the forced device count."""
+    from pyipm_jax.parallel import launch as L
+
+    base = {"XLA_FLAGS": "--xla_force_host_platform_device_count=8",
+            "CUDA_VISIBLE_DEVICES": "0,1,2,3"}
+    envs = [L.worker_env(base, "localhost:1", 4, i, local_devices=2,
+                         cpu=False) for i in range(4)]
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in envs] == ["0", "1", "2", "3"]
+    for i, e in enumerate(envs):
+        assert e[L.ENV_PROC_ID] == str(i) and e[L.ENV_NPROC] == "4"
+        assert L.ENV_LOCAL_DEVICES not in e and "JAX_PLATFORMS" not in e
+    cpu = L.worker_env(base, "localhost:1", 2, 1, local_devices=2, cpu=True)
+    assert cpu["JAX_PLATFORMS"] == "cpu"
+    assert cpu["XLA_FLAGS"] == "--xla_force_host_platform_device_count=2"
+    assert cpu[L.ENV_LOCAL_DEVICES] == "2"
+
+
+def test_spawn_gpu_refuses_more_workers_than_cards(monkeypatch):
+    from pyipm_jax.parallel import launch as L
+
+    monkeypatch.setattr(L, "gpu_count", lambda: 2)
+    with pytest.raises(ValueError, match="need as many GPUs"):
+        L.spawn_local(3, ["unused.py"], cpu=False)

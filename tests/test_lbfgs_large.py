@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu.config import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models.random_nlp import (
+from pyipm_jax.config import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models.random_nlp import (
     make_dense_nlp_problem, sample_dense_nlp,
 )
 
@@ -42,7 +42,7 @@ def test_lbfgs_converges_at_d4096_unconstrained():
     D = 4096
     data = sample_dense_nlp(jax.random.key(1), D, 1, dtype=jnp.float64)
 
-    from pyipm_tpu.core.problem import Problem
+    from pyipm_jax.core.problem import Problem
 
     sqrtD = float(np.sqrt(D))
 

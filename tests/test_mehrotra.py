@@ -1,4 +1,4 @@
-"""Mehrotra predictor-corrector barrier strategy (TPU-native extension;
+"""Mehrotra predictor-corrector barrier strategy (an extension;
 IPMConfig.mu_strategy='mehrotra', ops/condensed.py
 condensed_direction_mehrotra).
 
@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig, solve
-from pyipm_tpu.models import REFERENCE_PROBLEMS
-from pyipm_tpu.models.random_nlp import make_qp_batch_solver, sample_qp_batch
+from pyipm_jax import IPMConfig, solve
+from pyipm_jax.models import REFERENCE_PROBLEMS
+from pyipm_jax.models.random_nlp import make_qp_batch_solver, sample_qp_batch
 
 INEQ_PROBLEMS = (5, 6, 7, 9, 10)
 

@@ -3,8 +3,8 @@ subsystems the reference lacks entirely)."""
 
 import numpy as np
 
-from pyipm_tpu import IPMConfig, solve
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig, solve
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 
 def test_metrics_history():
@@ -103,7 +103,7 @@ def test_nan_guard_flags_poisoned_problem():
     import jax
     import jax.numpy as jnp
 
-    from pyipm_tpu import make_problem
+    from pyipm_jax import make_problem
 
     def f(x):
         return (x[0] - 2.0) ** 2 + x[1] ** 2
@@ -125,7 +125,7 @@ def test_nan_guard_flags_poisoned_problem():
 def test_nan_guard_off_preserves_reference_behavior():
     import jax.numpy as jnp
 
-    from pyipm_tpu import make_problem
+    from pyipm_jax import make_problem
 
     def f(x):
         return jnp.where(x[0] < 0.5, (x[0] - 2.0) ** 2,
@@ -138,8 +138,8 @@ def test_nan_guard_off_preserves_reference_behavior():
 
 
 def test_profile_solve_and_iteration_report():
-    from pyipm_tpu import make_solver
-    from pyipm_tpu.utils.profiling import (
+    from pyipm_jax import make_solver
+    from pyipm_jax.utils.profiling import (
         SolveProfile, iteration_report, profile_solve,
     )
 
@@ -169,7 +169,7 @@ def test_named_scopes_in_lowered_hlo():
     --profile traces are phase-labeled instead of raw XLA fusions."""
     import jax
 
-    from pyipm_tpu.core.solver import make_solver
+    from pyipm_jax.core.solver import make_solver
 
     spec = REFERENCE_PROBLEMS[7]
     prob = spec.make()

@@ -11,8 +11,8 @@ all 10.
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig, solve
-from pyipm_tpu.models import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig, solve
+from pyipm_jax.models import REFERENCE_PROBLEMS
 
 STOL = 1.0e-3   # reference unit_tests.py:51
 

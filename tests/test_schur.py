@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu.config import IPMConfig
-from pyipm_tpu.parallel.schur import (
+from pyipm_jax.config import IPMConfig
+from pyipm_jax.parallel.schur import (
     SeparableData, make_separable_solver, sample_separable,
 )
 
@@ -80,7 +80,7 @@ def test_separable_with_blockwise_equalities():
     """Eq-beyond-box structure: per-block equality constraints ce_k(x_k)=0
     on top of coupling + bounds.  The distributed solve must converge and
     satisfy ALL constraint classes plus global stationarity."""
-    from pyipm_tpu.parallel.schur import sample_separable_eq
+    from pyipm_jax.parallel.schur import sample_separable_eq
 
     K, d, mc, me = 8, 4, 2, 1
     spec, data, x0 = sample_separable_eq(jax.random.key(3), K, d, mc,
@@ -119,7 +119,7 @@ def test_separable_with_blockwise_equalities():
 def test_separable_eq_without_box():
     """Pure-equality separable problem (no bounds): per-block + coupling
     equalities only."""
-    from pyipm_tpu.parallel.schur import sample_separable_eq
+    from pyipm_jax.parallel.schur import sample_separable_eq
 
     K, d, mc, me = 4, 3, 2, 1
     spec, data, x0 = sample_separable_eq(jax.random.key(4), K, d, mc,
@@ -143,7 +143,7 @@ def test_block_general_converges_nonlinear_coupling():
     """Full generality: nonlinear per-block inequalities (not bounds),
     per-block equalities, and a NONLINEAR coupling constraint
     cc(sum_k g_k(x_k)) = 0 with quadratic pooled features."""
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -176,10 +176,10 @@ def test_block_general_parity_with_assembled_single_device():
     ASSEMBLED problem (blocks concatenated, coupling appended to ce) —
     same constraint classes as the reference's full NLP
     (/root/reference/pyipm.py:29-36)."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -239,7 +239,7 @@ def test_block_general_parity_with_assembled_single_device():
 def test_block_upper_and_lower_bounds():
     """Box constraints with BOTH bounds via the general inequality class
     (ci = [x - lb; ub - x])."""
-    from pyipm_tpu.parallel.schur import BlockNLP, box_ci, make_block_solver
+    from pyipm_jax.parallel.schur import BlockNLP, box_ci, make_block_solver
 
     K, d, mc = 8, 3, 2
     key = jax.random.key(12)
@@ -274,10 +274,10 @@ def test_block_mehrotra_parity_with_assembled_single_device():
     single-device mu_strategy='mehrotra' solve — same factorization-reuse
     predictor/corrector, psum-reduced centering (parallel/schur.py vs
     ops/condensed.py condensed_direction_mehrotra)."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -320,7 +320,7 @@ def test_block_solver_pause_resume_checkpoint():
     checkpoint unit), and resumes BIT-EXACTLY to the straight-through
     result — the multi-host failure-recovery contract (parallel/launch.py
     docstring: recovery = relaunch + resume from checkpoint)."""
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -356,10 +356,10 @@ def test_block_solver_trace_metrics():
     """trace_metrics=True records per-iteration history for the
     distributed solve (observability parity with the single-device core;
     utils.profiling.iteration_report renders it)."""
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
-    from pyipm_tpu.utils.profiling import iteration_report
+    from pyipm_jax.utils.profiling import iteration_report
 
     K, d = 8, 3
     spec, theta, ccdata, x0 = sample_block_general(
@@ -384,7 +384,7 @@ def test_ci_identity_fast_path_matches_general():
     """ci_identity=True (bounds fast path: Sigma on the diagonal,
     elementwise slack recovery) must reproduce the general-Jacobian path
     on the same problem."""
-    from pyipm_tpu.parallel.schur import BlockNLP, make_block_solver
+    from pyipm_jax.parallel.schur import BlockNLP, make_block_solver
 
     K, d, mc = 8, 4, 2
     key = jax.random.key(16)
@@ -420,10 +420,10 @@ def test_block_coupling_inequality_parity_with_assembled():
     replicated slacks through the bordered Schur complement: must match
     the assembled single-device condensed solve (ci = [blocks; cci]) to
     roundoff, and the cap must bind/hold at the solution."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
-    from pyipm_tpu.parallel.schur import BlockNLP, make_block_solver
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
+    from pyipm_jax.parallel.schur import BlockNLP, make_block_solver
 
     K, d, me, ni, pdim, mc, mci = 8, 3, 1, 2, 2, 1, 2
     key = jax.random.key(21)
@@ -514,7 +514,7 @@ def test_block_coupling_inequality_mehrotra():
     """The Mehrotra predictor-corrector handles coupling-inequality pairs
     (centering over block + replicated slacks) and reaches the same
     KKT point."""
-    from pyipm_tpu.parallel.schur import BlockNLP, make_block_solver
+    from pyipm_jax.parallel.schur import BlockNLP, make_block_solver
 
     K, d, pdim, mci = 8, 3, 2, 1
     key = jax.random.key(22)
@@ -554,7 +554,7 @@ def test_block_coupling_inequality_only_barrier():
     """Edge: NO per-block inequalities (ni=0) but a coupling inequality —
     the barrier lives entirely in the replicated slacks (empty block
     slack arrays through FTB/centrality/merit paths)."""
-    from pyipm_tpu.parallel.schur import BlockNLP, make_block_solver
+    from pyipm_jax.parallel.schur import BlockNLP, make_block_solver
 
     K, d, pdim, mci, me = 8, 3, 2, 1, 1
     key = jax.random.key(23)
@@ -595,10 +595,10 @@ def test_block_ragged_masks_parity_with_assembled():
     only ever sees the active rows.  The sampler fills inactive rows
     with junk data (violated-if-leaked), so any masking hole breaks
     parity."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_ragged,
     )
 
@@ -666,8 +666,8 @@ def test_block_all_ones_masks_match_unmasked():
     ragged machinery is a no-op when every row is active)."""
     import dataclasses as _dc
 
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -699,10 +699,10 @@ def test_ls_init_overdetermined_branch_parity():
     multipliers, Schur over coupling columns) matches the assembled
     single-device default-init solve: per-block eq only (me=1, ni=0)
     plus one coupling equality."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.core.problem import Problem
-    from pyipm_tpu.core.solver import solve as solve_single
-    from pyipm_tpu.parallel.schur import BlockNLP, make_block_solver
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.core.problem import Problem
+    from pyipm_jax.core.solver import solve as solve_single
+    from pyipm_jax.parallel.schur import BlockNLP, make_block_solver
 
     K, d, me, p, mc = 8, 4, 1, 2, 1
     kq, kc, ke, kg, kx = jax.random.split(jax.random.key(31), 5)
@@ -768,8 +768,8 @@ def test_block_lbfgs_mode_converges_and_matches_exact():
     converges to the same optimum as exact-Hessian mode — the
     distributed form of the reference's large-D escape hatch
     (reference README.md:196-207)."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -806,8 +806,8 @@ def test_block_lbfgs_box_identity_fast_path():
     """L-BFGS mode through the ci_identity (box bounds) fast path: the
     slack Sigma folds into the DIAGONAL Woodbury base instead of
     widening the low-rank correction."""
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.parallel.schur import (
         make_separable_solver, sample_separable,
     )
 
@@ -831,8 +831,8 @@ def test_block_lbfgs_combos():
     factor reuse) — assert that stays true."""
     import pytest as _pt
 
-    from pyipm_tpu.config import IPMConfig as Cfg
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.config import IPMConfig as Cfg
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_ragged,
     )
 
@@ -866,7 +866,7 @@ def test_linear_coupling_declaration_matches_general_path():
     roundoff."""
     import dataclasses
 
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -899,7 +899,7 @@ def test_refinement_knob_configs_solve_correctly():
     refinement) must still SOLVE, not just compile (the census only
     lowers them): each config converges on the general coupled problem
     and lands on the same optimum as the default guarded-2-step config."""
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -936,7 +936,7 @@ def test_block_general_combo_fuzz(combo):
     collective surgery touched every reduction path): each combo must
     converge with all four global KKT norms <= Ktol and satisfy its
     per-block and coupling constraints."""
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_general,
     )
 
@@ -975,7 +975,7 @@ def test_linear_coupling_composes_with_ragged_masks():
     affine) agree to roundoff."""
     import dataclasses
 
-    from pyipm_tpu.parallel.schur import (
+    from pyipm_jax.parallel.schur import (
         make_block_solver, sample_block_ragged,
     )
 

@@ -10,16 +10,16 @@ iteration counts (the other half of "as fast as the reference, per
 iteration AND per solve").
 
 All numbers measured on the 8-virtual-device CPU mesh in float64 —
-deterministic (no TPU noise in iteration counts).
+deterministic (no accelerator noise in iteration counts).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models.reference_problems import REFERENCE_PROBLEMS
+from pyipm_jax import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models.reference_problems import REFERENCE_PROBLEMS
 
 
 def test_example7_reference_transcript_parity():

@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pyipm_tpu import IPMConfig
-from pyipm_tpu.core.solver import make_solver
-from pyipm_tpu.models.random_nlp import (
+from pyipm_jax import IPMConfig
+from pyipm_jax.core.solver import make_solver
+from pyipm_jax.models.random_nlp import (
     make_qp_batch_solver, make_qp_problem, sample_qp_batch,
 )
-from pyipm_tpu.models.reference_problems import get_problem
-from pyipm_tpu.parallel.batch import make_wave_batch_solver
+from pyipm_jax.models.reference_problems import get_problem
+from pyipm_jax.parallel.batch import make_wave_batch_solver
 
 
 def _budget_matches_full(nums):
